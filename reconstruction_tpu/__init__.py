@@ -1,6 +1,6 @@
-"""reconstruction_tpu — a TPU-native multiview 3D reconstruction framework.
+"""reconstruction_tpu — a JAX multiview 3D reconstruction framework.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the
+A from-scratch JAX/XLA re-design of the capabilities of the
 ``seed93/reconstruction`` reference (Beeler et al. 2010-style passive
 multiview stereo: calibrated camera pairs -> rectified NCC stereo ->
 constraint-filtered disparity -> iterative subpixel refinement ->
@@ -11,7 +11,6 @@ pose-graph + bundle-adjustment stage.
 
 Layering (see SURVEY.md section 7):
   core/      camera model, rectification, remap, pyramids, morphology
-  ops/       hot kernels (Pallas TPU + XLA reference implementations)
   stereo/    dense matching, constraint passes, refinement, triangulation
   cloud/     point-cloud neighbors, SOR, normals, MLS, cross-view dedup
   surface/   screened Poisson, marching cubes, trim, cleanup, texture

@@ -70,10 +70,8 @@ def _project(K, Rt0, pose6, X):
 
     Fully elementwise: every matrix action is unrolled to scalar
     components, because under vmap the 3x3 matmul form lowers to
-    batched tiny dot_generals whose 3-wide contractions pad MXU tiles —
-    the r4 on-chip breakdown measured 12.9 ms for the PRIMAL residual
-    alone and 58 ms with jacfwd tangents at 512k observations
-    (tools/profile_ba2.py); the unrolled form is pure VPU vector code.
+    batched tiny dot_generals; the unrolled form fuses into plain
+    elementwise code.
     The rotation acts via Rodrigues on vectors:
     R(w) v = v + A (w x v) + B (w x (w x v)), same smooth-sinc A/B and
     eps conventions as _rodrigues.
@@ -205,11 +203,8 @@ def _obs_jacobians(K, Rt0, pose6, X, uv):
 def _obs_jac_scalars(K, Rt0, pose6, X, uv):
     """_obs_jacobians flattened to a 20-tuple of scalars
     (r0, r1, Jc[2x6] row-major, Jp[2x3] row-major).  vmapped, each
-    output is a clean (N,) vector — the stacked (N, 2, 6)/(N, 2, 3)
-    forms pad their (2, 6)/(2, 3) trailing dims to full (8, 128)
-    vector tiles whenever XLA materializes them at a fusion boundary
-    (8-43x HBM inflation, the dominant cost of the r4 mid-round
-    31 ms Schur step — tools/profile_ba3.py)."""
+    output is a clean (N,) vector instead of stacked (N, 2, 6)/(N, 2, 3)
+    forms with tiny trailing dims."""
     r, Jc, Jp = _obs_jacobians(K, Rt0, pose6, X, uv)
     out = [r[0], r[1]]
     out += [Jc[a, i] for a in range(2) for i in range(6)]
@@ -261,9 +256,8 @@ def _huber_weight(r: jnp.ndarray, delta: float) -> jnp.ndarray:
 def _inv3x3(A: jnp.ndarray) -> jnp.ndarray:
     """Closed-form batched 3x3 inverse (adjugate / det).
 
-    The r3 kernel used `jnp.linalg.inv` -> batched LU, which lowers to
-    loop-heavy code on TPU; the adjugate is ~50 fused elementwise ops
-    per matrix.  Inputs are the Tikhonov-regularized SPD point blocks,
+    Batched LU (`jnp.linalg.inv`) lowers to loop-heavy code; the
+    adjugate is ~50 fused elementwise ops per matrix.  Inputs are the Tikhonov-regularized SPD point blocks,
     so det > 0.
     """
     a, b, c = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
@@ -306,20 +300,19 @@ def _gather_obs_params(problem: BAProblem, poses: jnp.ndarray,
                        cam_flat: jnp.ndarray, C: int):
     """Per-observation camera parameters via ONE-HOT MATMUL.
 
-    Per-element `K[cam]`/`Rt0[cam]`/`poses[cam]` gathers serialize on
-    TPU (the repo-wide minor-axis-gather rule); a (N, C) @ (C, 27)
-    matmul rides the MXU instead and is exact for one-hot rows.
+    A (N, C) @ (C, 27) matmul replaces per-element
+    `K[cam]`/`Rt0[cam]`/`poses[cam]` gathers and is exact for one-hot
+    rows.
     Returns (oh (N, C), K (N,3,3), Rt0 (N,3,4), pose (N,6)).
     """
     oh = jax.nn.one_hot(cam_flat, C, dtype=poses.dtype)         # (N, C)
     pack = jnp.concatenate([problem.K.reshape(C, 9),
                             problem.Rt0.reshape(C, 12),
                             poses], axis=1)                      # (C, 27)
-    # Precision HIGHEST: at the TPU default the f32 dot takes bf16
-    # operand passes, quantizing K/poses to ~8-bit mantissa BEFORE the
-    # one-hot select (fx~1000 rounds in steps of ~4) — the "exact for
-    # one-hot rows" claim only holds at full precision.  The matmul is
-    # tiny ((N, C) @ (C, 27)) so the extra passes are free.
+    # Precision HIGHEST: at reduced precision (bf16 or TF32 operand
+    # passes) K/poses would be quantized BEFORE the one-hot select — the
+    # "exact for one-hot rows" claim only holds at full f32.  The matmul
+    # is tiny ((N, C) @ (C, 27)) so the extra passes are free.
     obs = jnp.matmul(oh, pack, precision=jax.lax.Precision.HIGHEST)
     N = cam_flat.shape[0]
     return (oh, obs[:, :9].reshape(N, 3, 3),
@@ -343,22 +336,17 @@ def ba_blocks(
              laid out (i, j)-major, and cost (scalar)).
     The caller psums S_partial / b_c / cost across point shards.
 
-    Layout rationale (measured, tools/profile_ba{2,3}.py): any big
-    intermediate with tiny trailing dims — (M, 3, 3), (N, 2, 6),
-    (M, C, 6, 3) — pads those dims to full (8, 128) vector tiles when
-    XLA materializes it, inflating HBM traffic 7-43x; the r4 mid-round
-    assembly spent ~25 of its 31 ms there.  Component arrays keep every
-    tensor either (N,)/(M,)-shaped, (36|18|6, N)-shaped (row-major
-    stacks feeding MXU one-hot reductions), or (6C, M)-shaped for the
-    Schur matmuls.
+    Layout: component arrays keep every big tensor either
+    (N,)/(M,)-shaped, (36|18|6, N)-shaped (row-major stacks feeding
+    one-hot matmul reductions), or (6C, M)-shaped for the Schur
+    matmuls, instead of intermediates with tiny trailing dims such as
+    (M, 3, 3), (N, 2, 6) or (M, C, 6, 3).
     """
     C = num_cameras
     M, O = problem.obs_cam.shape
     N = M * O
 
-    # Flatten observations and gather camera params on the MXU (the r3
-    # per-(pid, oid) vmap gathered K/Rt0/poses element-wise: 512k
-    # serialized small gathers dominated the 212 ms kernel time).
+    # Flatten observations and gather camera params by one-hot matmul.
     cam = problem.obs_cam.reshape(N)
     ok = problem.obs_ok.reshape(N).astype(poses.dtype)
     uv = problem.obs_uv.reshape(N, 2)
@@ -389,8 +377,8 @@ def ba_blocks(
 
     # Camera blocks: (36|6, N) row stacks reduced by ONE one-hot matmul.
     # HIGHEST precision: the products feeding these Hessian reductions
-    # would otherwise be rounded to bf16 operands; output is tiny
-    # ((36|6) x C) so the extra MXU passes cost nothing.
+    # would otherwise be rounded to bf16/TF32 operands; output is tiny
+    # ((36|6) x C) so the extra passes cost nothing.
     hi = jax.lax.Precision.HIGHEST
     Gt = jnp.stack([Jc[0][i] * Jc[0][j] + Jc[1][i] * Jc[1][j]
                     for i in range(6) for j in range(6)])     # (36, N)
@@ -399,39 +387,17 @@ def ba_blocks(
                      for i in range(6)])                      # (6, N)
     b_c = -jnp.matmul(gct, oh, precision=hi).T                # (C, 6)
 
-    # Couplings W_t[e, c, m] = sum_o He[e, m, o] [cam[m, o] == c].
-    # Three formulations measured (BENCH_NOTES r5):
-    #   * XLA fused broadcast-reduce over (18, C, M, O): re-reads He
-    #     rows per camera (~1.2 GB at 16 cams / 64k pts) — 9.6-11 ms
-    #     full step;
-    #   * o-unrolled accumulation: streams the 75 MB (18, C, M)
-    #     accumulator per observation (~1.5 GB) — 16.5 ms (rejected);
-    #   * M-tiled Pallas contraction (ops/ba_coupling_pallas): VMEM
-    #     accumulator, every operand streamed once (~145 MB floor) —
-    #     the TPU path (RECON_BA_COUPLING=xla opts out; o-sum order
-    #     differs from the axis-reduce by f32 reassociation only).
-    import os as _os
-    _d = jax.devices()[0]
-    _is_tpu = ("tpu" in _d.platform.lower()
-               or "tpu" in getattr(_d, "device_kind", "").lower())
-    use_pallas = _os.environ.get("RECON_BA_COUPLING", "pallas") == \
-        "pallas" and _is_tpu
-    if use_pallas:
-        from reconstruction_tpu.ops.ba_coupling_pallas import (
-            ba_coupling_pallas)
-        He_om = jnp.stack([(Jc[0][i] * Jp[0][j] + Jc[1][i] * Jp[1][j])
-                           .reshape(M, O).T
-                           for i in range(6) for j in range(3)])
-        W_t = ba_coupling_pallas(He_om, problem.obs_cam.T, C)
-    else:
-        He = jnp.stack([(Jc[0][i] * Jp[0][j] + Jc[1][i] * Jp[1][j])
-                        .reshape(M, O)
-                        for i in range(6) for j in range(3)])  # (18,M,O)
-        oh_t = oh.T.reshape(C, M, O)
-        W_t = (He[:, None] * oh_t[None]).sum(-1)               # (18,C,M)
+    # Couplings W_t[e, c, m] = sum_o He[e, m, o] [cam[m, o] == c], as a
+    # fused broadcast-reduce over (18, C, M, O).  It re-reads the He
+    # rows once per camera; a per-camera segment sum would not.
+    He = jnp.stack([(Jc[0][i] * Jp[0][j] + Jc[1][i] * Jp[1][j])
+                    .reshape(M, O)
+                    for i in range(6) for j in range(3)])      # (18,M,O)
+    oh_t = oh.T.reshape(C, M, O)
+    W_t = (He[:, None] * oh_t[None]).sum(-1)                   # (18,C,M)
 
     # Schur reduction: S = blockdiag(Hcc) - sum_k Xk Yk^T with
-    # (c, i)-major (6C, M) slabs — three clean MXU matmuls.
+    # (c, i)-major (6C, M) slabs — three plain matmuls.
     Hinv = _sym3_inv_comps(hpp)                               # 9 x (M,)
     WH_rows = []
     for i in range(6):

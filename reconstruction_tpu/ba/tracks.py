@@ -1,6 +1,6 @@
 """Feature matching + multi-view track building.
 
-Descriptor matching is one NCC matmul per view pair (MXU) with
+Descriptor matching is one NCC matmul per view pair with
 mutual-best + threshold gating; tracks link matches transitively via
 host-side union-find (tiny data), then get padded to the (M, O)
 observation layout `BAProblem` expects.

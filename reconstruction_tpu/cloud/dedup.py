@@ -13,7 +13,7 @@ camera; points landing in the same pixel bucket are resolved:
     facing direction, keep one NCC-best representative per segment
     (`:269-334`).
 
-TPU-native formulation: scatter-argmax bucket assignment with a fixed
+Dense-array formulation: scatter-argmax bucket assignment with a fixed
 candidate capacity per pixel; the NCC uses windows at the PROJECTED
 position in the second camera (the reference erroneously reuses the first
 camera's pixel coordinates at `CCloudOptimization.cpp:254,322` — the
@@ -28,6 +28,8 @@ from typing import NamedTuple, Sequence, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
+
+from reconstruction_tpu.config import GEOMETRY_PRECISION
 
 
 class DedupInputs(NamedTuple):
@@ -71,13 +73,14 @@ def cross_view_dedup(
     # Best-facing pair per point (`:160-176`).
     dirs = ctx.centers[:, None, :] - points[None, :, :]        # (P, N, 3)
     dn = jnp.linalg.norm(dirs, axis=-1)
-    score = jnp.einsum("nj,pnj->pn", normals, dirs) / jnp.maximum(dn, 1e-9)
+    score = (jnp.einsum("nj,pnj->pn", normals, dirs, precision=GEOMETRY_PRECISION)
+             / jnp.maximum(dn, 1e-9))
     pair = jnp.argmax(score, axis=0)                           # (N,)
 
     # Project into the pair's cam0.
     Ph = ctx.P0[pair]                                          # (N, 3, 4)
     vh = jnp.concatenate([points, jnp.ones((N, 1), points.dtype)], axis=1)
-    pr = jnp.einsum("nij,nj->ni", Ph, vh)
+    pr = jnp.einsum("nij,nj->ni", Ph, vh, precision=GEOMETRY_PRECISION)
     z = pr[:, 2]
     u = jnp.round(pr[:, 0] / jnp.where(jnp.abs(z) > 1e-9, z, 1e-9)).astype(jnp.int32)
     v = jnp.round(pr[:, 1] / jnp.where(jnp.abs(z) > 1e-9, z, 1e-9)).astype(jnp.int32)

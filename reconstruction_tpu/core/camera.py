@@ -16,6 +16,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from reconstruction_tpu.config import GEOMETRY_PRECISION
+
 
 @jax.tree_util.register_dataclass
 @dataclass(frozen=True)
@@ -41,17 +43,20 @@ class Camera:
     @property
     def center(self) -> jnp.ndarray:
         """C = -R^T t (`CManageData.cpp:61`)."""
-        return -jnp.einsum("...ji,...j->...i", self.R, self.t)
+        return -jnp.einsum("...ji,...j->...i", self.R, self.t,
+                           precision=GEOMETRY_PRECISION)
 
     @property
     def P(self) -> jnp.ndarray:
         """3x4 projection matrix K [R|t]."""
-        return jnp.einsum("...ij,...jk->...ik", self.K, self.Rt)
+        return jnp.einsum("...ij,...jk->...ik", self.K, self.Rt,
+                          precision=GEOMETRY_PRECISION)
 
     def project(self, pts: jnp.ndarray) -> jnp.ndarray:
         """Project world points (..., N, 3) to pixel coords (..., N, 2)."""
-        cam = jnp.einsum("...ij,...nj->...ni", self.R, pts) + self.t[..., None, :]
-        img = jnp.einsum("...ij,...nj->...ni", self.K, cam)
+        cam = (jnp.einsum("...ij,...nj->...ni", self.R, pts, precision=GEOMETRY_PRECISION)
+               + self.t[..., None, :])
+        img = jnp.einsum("...ij,...nj->...ni", self.K, cam, precision=GEOMETRY_PRECISION)
         return img[..., :2] / img[..., 2:3]
 
     def stack(cameras: Sequence["Camera"]) -> "Camera":

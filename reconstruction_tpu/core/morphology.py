@@ -3,7 +3,7 @@
 Replaces `cv::getStructuringElement(MORPH_ELLIPSE)` + `cv::erode`
 (`reconstruction/CStereoMatching.cpp:157-158,704-705`).  Erosion with an
 arbitrary binary structuring element is expressed as a single XLA
-convolution (MXU-friendly): a pixel survives iff no invalid pixel falls
+convolution: a pixel survives iff no invalid pixel falls
 under the SE footprint.
 """
 

@@ -1,21 +1,70 @@
 """ctypes loader for the native host components.
 
-Build with `make -C reconstruction_tpu/native` (g++, OpenMP).  All callers
-fall back to pure-Python implementations when the library is missing, so
-the framework works unbuilt; the native paths take over transparently for
+The library is built from `src/` with the Makefile at first use (g++
+with std::thread, no OpenMP runtime; `make -C reconstruction_tpu/native`
+does the same by hand) and rebuilt when a source is newer than it.  All callers fall back to
+pure-Python implementations when it cannot be built, so the framework
+works without a compiler; the native paths take over transparently for
 the host-bound hot spots (isosurface extraction, PLY payload packing).
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import os
+import subprocess
 from typing import Optional, Tuple
 
 import numpy as np
 
+LIB_NAME = "librecon_native.so"
+_DIR = os.path.dirname(os.path.abspath(__file__))
 _LIB = None
 _TRIED = False
+
+
+def _up_to_date(path: str, directory: str) -> bool:
+    if not os.path.exists(path):
+        return False
+    inputs = (glob.glob(os.path.join(directory, "src", "*.cpp"))
+              + glob.glob(os.path.join(directory, "src", "*.h")))
+    inputs.append(os.path.join(directory, "Makefile"))
+    return os.path.getmtime(path) >= max(os.path.getmtime(p) for p in inputs)
+
+
+def build(directory: str = _DIR) -> Optional[str]:
+    """Build ``directory``/librecon_native.so unless it is up to date;
+    returns its path, or None if the build failed.
+
+    Safe under concurrent callers (test workers import at once): the
+    build holds an exclusive lock file, compiles to a temporary name and
+    renames it into place, so no caller ever loads a half-written file.
+    """
+    import fcntl
+    path = os.path.join(directory, LIB_NAME)
+    if _up_to_date(path, directory):
+        return path
+    with open(os.path.join(directory, ".build.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if _up_to_date(path, directory):  # built while we waited
+            return path
+        tmp = f"{LIB_NAME}.{os.getpid()}.tmp"
+        try:
+            r = subprocess.run(["make", "-s", "-C", directory, f"LIB={tmp}"],
+                               capture_output=True, text=True)
+        except OSError as e:  # no make on this host
+            r = subprocess.CompletedProcess(e.filename, 127, "", str(e))
+        if r.returncode != 0:
+            from reconstruction_tpu.utils.logging import get_logger
+            get_logger(__name__).warning(
+                "building %s failed (rc %s): %s", LIB_NAME, r.returncode,
+                (r.stderr or r.stdout)[-2000:])
+            if os.path.exists(os.path.join(directory, tmp)):
+                os.remove(os.path.join(directory, tmp))
+            return None
+        os.replace(os.path.join(directory, tmp), path)
+    return path
 
 
 def load() -> Optional[ctypes.CDLL]:
@@ -23,8 +72,8 @@ def load() -> Optional[ctypes.CDLL]:
     if _TRIED:
         return _LIB
     _TRIED = True
-    path = os.path.join(os.path.dirname(__file__), "librecon_native.so")
-    if not os.path.exists(path):
+    path = build()
+    if path is None:
         return None
     try:
         lib = ctypes.CDLL(path)
@@ -43,6 +92,8 @@ def load() -> Optional[ctypes.CDLL]:
             ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_uint8),
             ctypes.c_int, ctypes.POINTER(ctypes.c_uint8)]
         lib.ply_pack_faces.restype = None
+        lib.native_threads.restype = ctypes.c_int
+        lib.native_threads.argtypes = []
         lib.ply_pack_faces.argtypes = [
             ctypes.c_long, ctypes.POINTER(ctypes.c_int32),
             ctypes.POINTER(ctypes.c_uint8)]
@@ -67,13 +118,20 @@ def load() -> Optional[ctypes.CDLL]:
             cdp, ctypes.c_long, ctypes.POINTER(ctypes.c_int32),
             ctypes.c_long, ctypes.c_int, ctypes.c_double, cup]
         _LIB = lib
-    except (OSError, AttributeError):  # stale .so without new symbols
+    except (OSError, AttributeError):  # unloadable or missing symbols
         _LIB = None
     return _LIB
 
 
 def available() -> bool:
     return load() is not None
+
+
+def threads() -> int:
+    """Worker threads of the library's parallel loops (0 if it is
+    unavailable)."""
+    lib = load()
+    return lib.native_threads() if lib is not None else 0
 
 
 def marching_tets_native(chi: np.ndarray, iso: float) -> Optional[np.ndarray]:

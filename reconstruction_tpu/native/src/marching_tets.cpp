@@ -1,9 +1,9 @@
 // Marching-tetrahedra isosurface extraction — native host path.
 //
-// The TPU solves the implicit function (surface/poisson.py); extraction is
+// The device solves the implicit function (surface/poisson.py); extraction is
 // host-bound and O(R^3), so it gets the native treatment the reference gave
 // its mesh toolchain (PoissonRecon.exe / meshlabserver, Demo/mesh.bat) —
-// except in-process, OpenMP-parallel, and with semantics identical to the
+// except in-process, multi-threaded, and with semantics identical to the
 // NumPy fallback in surface/marching.py (same 6-tet cube split around the
 // 0-7 diagonal; bit-compatible case handling).
 //
@@ -15,10 +15,9 @@
 #include <cstdint>
 #include <cstring>
 #include <cmath>
+#include <vector>
 
-#ifdef _OPENMP
-#include <omp.h>
-#endif
+#include "parallel.h"
 
 namespace {
 
@@ -88,116 +87,66 @@ inline int tet_tris(const V3 p[4], const double v[4], V3* out) {
     return 0;
 }
 
+// Visits every sign-changing cube of x-slab i in (j, k) order and calls
+// f(tris, n) with the n (0..2) triangles of each of its 6 tets; `tris`
+// is null in count mode.
+template <bool FILL, typename F>
+inline void slab(const float* chi, long ry, long rz, float iso, long i,
+                 F&& f) {
+    for (long j = 0; j < ry - 1; j++)
+        for (long k = 0; k < rz - 1; k++) {
+            double vals[8]; V3 pos[8]; bool lo = false, hi = false;
+            for (int c = 0; c < 8; c++) {
+                long ci = i + CORNERS[c][0], cj = j + CORNERS[c][1],
+                     ck = k + CORNERS[c][2];
+                double v = (double)chi[(ci * ry + cj) * rz + ck] - iso;
+                vals[c] = v;
+                pos[c] = {(double)ci, (double)cj, (double)ck};
+                if (v < 0) lo = true; else hi = true;
+            }
+            if (!lo || !hi) continue;
+            for (int t = 0; t < 6; t++) {
+                V3 tp[4]; double tv[4]; V3 tris[6];
+                for (int c = 0; c < 4; c++) {
+                    tp[c] = pos[TETS[t][c]];
+                    tv[c] = vals[TETS[t][c]];
+                }
+                int n = tet_tris(tp, tv, FILL ? tris : nullptr);
+                f(tris, n);
+            }
+        }
+}
+
 inline long process(const float* chi, long rx, long ry, long rz, float iso,
                     float* out_tris, long cap) {
+    // Per-slab counts, then (fill mode) each slab writes from its prefix
+    // offset: the output order is the serial order whatever the threads.
+    const long nslab = rx > 1 ? rx - 1 : 0;
+    std::vector<long> slab_counts(nslab, 0);
+    recon::parallel_for(nslab, [&](long i) {
+        long local = 0;
+        slab<false>(chi, ry, rz, iso, i,
+                    [&](const V3*, int n) { local += n; });
+        slab_counts[i] = local;
+    });
+    std::vector<long> slab_off(nslab, 0);
     long total = 0;
-#ifdef _OPENMP
-#pragma omp parallel reduction(+:total)
-#endif
-    {
-        // Per-thread staging keeps writes ordered deterministically only
-        // in count mode; fill mode runs a second ordered pass per slab.
-#ifdef _OPENMP
-#pragma omp for schedule(static)
-#endif
-        for (long i = 0; i < rx - 1; i++) {
-            long local = 0;
-            for (long j = 0; j < ry - 1; j++) {
-                for (long k = 0; k < rz - 1; k++) {
-                    double vals[8];
-                    V3 pos[8];
-                    bool lo = false, hi = false;
-                    for (int c = 0; c < 8; c++) {
-                        long ci = i + CORNERS[c][0];
-                        long cj = j + CORNERS[c][1];
-                        long ck = k + CORNERS[c][2];
-                        double v = (double)chi[(ci * ry + cj) * rz + ck] - iso;
-                        vals[c] = v;
-                        pos[c] = {(double)ci, (double)cj, (double)ck};
-                        if (v < 0) lo = true; else hi = true;
-                    }
-                    if (!lo || !hi) continue;
-                    for (int t = 0; t < 6; t++) {
-                        V3 tp[4];
-                        double tv[4];
-                        for (int c = 0; c < 4; c++) {
-                            tp[c] = pos[TETS[t][c]];
-                            tv[c] = vals[TETS[t][c]];
-                        }
-                        local += tet_tris(tp, tv, nullptr);
-                    }
-                }
-            }
-            total += local;
-        }
-    }
+    for (long i = 0; i < nslab; i++) { slab_off[i] = total; total += slab_counts[i]; }
     if (!out_tris) return total;
 
-    // Fill pass: sequential per x-slab with running offsets (deterministic
-    // ordering; slabs are independent so prefix offsets come from a first
-    // count sweep per slab).
-    long* slab_counts = new long[rx > 1 ? rx - 1 : 1]();
-#ifdef _OPENMP
-#pragma omp parallel for schedule(static)
-#endif
-    for (long i = 0; i < rx - 1; i++) {
-        long local = 0;
-        for (long j = 0; j < ry - 1; j++)
-            for (long k = 0; k < rz - 1; k++) {
-                double vals[8]; V3 pos[8]; bool lo=false, hi=false;
-                for (int c = 0; c < 8; c++) {
-                    long ci=i+CORNERS[c][0], cj=j+CORNERS[c][1], ck=k+CORNERS[c][2];
-                    double v=(double)chi[(ci*ry+cj)*rz+ck]-iso;
-                    vals[c]=v; pos[c]={(double)ci,(double)cj,(double)ck};
-                    if (v<0) lo=true; else hi=true;
-                }
-                if (!lo||!hi) continue;
-                for (int t = 0; t < 6; t++) {
-                    V3 tp[4]; double tv[4];
-                    for (int c = 0; c < 4; c++) { tp[c]=pos[TETS[t][c]]; tv[c]=vals[TETS[t][c]]; }
-                    local += tet_tris(tp, tv, nullptr);
-                }
-            }
-        slab_counts[i] = local;
-    }
-    long offset = 0;
-    long* slab_off = new long[rx > 1 ? rx - 1 : 1];
-    for (long i = 0; i < rx - 1; i++) { slab_off[i] = offset; offset += slab_counts[i]; }
-
-#ifdef _OPENMP
-#pragma omp parallel for schedule(static)
-#endif
-    for (long i = 0; i < rx - 1; i++) {
+    recon::parallel_for(nslab, [&](long i) {
         long w = slab_off[i];  // triangle cursor
-        for (long j = 0; j < ry - 1; j++)
-            for (long k = 0; k < rz - 1; k++) {
-                double vals[8]; V3 pos[8]; bool lo=false, hi=false;
-                for (int c = 0; c < 8; c++) {
-                    long ci=i+CORNERS[c][0], cj=j+CORNERS[c][1], ck=k+CORNERS[c][2];
-                    double v=(double)chi[(ci*ry+cj)*rz+ck]-iso;
-                    vals[c]=v; pos[c]={(double)ci,(double)cj,(double)ck};
-                    if (v<0) lo=true; else hi=true;
-                }
-                if (!lo||!hi) continue;
-                for (int t = 0; t < 6; t++) {
-                    V3 tp[4]; double tv[4]; V3 tris[6];
-                    for (int c = 0; c < 4; c++) { tp[c]=pos[TETS[t][c]]; tv[c]=vals[TETS[t][c]]; }
-                    int n = tet_tris(tp, tv, tris);
-                    for (int q = 0; q < n; q++) {
-                        if (w < cap) {
-                            for (int vtx = 0; vtx < 3; vtx++) {
-                                out_tris[w * 9 + vtx * 3 + 0] = (float)tris[q * 3 + vtx].x;
-                                out_tris[w * 9 + vtx * 3 + 1] = (float)tris[q * 3 + vtx].y;
-                                out_tris[w * 9 + vtx * 3 + 2] = (float)tris[q * 3 + vtx].z;
-                            }
-                        }
-                        w++;
-                    }
+        slab<true>(chi, ry, rz, iso, i, [&](const V3* tris, int n) {
+            for (int q = 0; q < n; q++, w++) {
+                if (w >= cap) continue;
+                for (int vtx = 0; vtx < 3; vtx++) {
+                    out_tris[w * 9 + vtx * 3 + 0] = (float)tris[q * 3 + vtx].x;
+                    out_tris[w * 9 + vtx * 3 + 1] = (float)tris[q * 3 + vtx].y;
+                    out_tris[w * 9 + vtx * 3 + 2] = (float)tris[q * 3 + vtx].z;
                 }
             }
-    }
-    delete[] slab_counts;
-    delete[] slab_off;
+        });
+    });
     return total;
 }
 

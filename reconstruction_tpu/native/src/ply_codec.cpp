@@ -4,14 +4,12 @@
 // and hand-rolled writers (CStereoMatching.cpp:723-757).  The Python layer
 // (io/ply.py) handles headers; these kernels move the bulk vertex payloads
 // between column arrays and interleaved record buffers without Python-level
-// copies.  OpenMP-parallel for multi-million-point clouds.
+// copies.  Multi-threaded for multi-million-point clouds.
 
 #include <cstdint>
 #include <cstring>
 
-#ifdef _OPENMP
-#include <omp.h>
-#endif
+#include "parallel.h"
 
 extern "C" {
 
@@ -21,10 +19,7 @@ extern "C" {
 long ply_pack(long n, const float* xyz, const float* nrm,
               const uint8_t* rgb, int bgr, uint8_t* out) {
     long rec = 12 + (nrm ? 12 : 0) + (rgb ? 3 : 0);
-#ifdef _OPENMP
-#pragma omp parallel for schedule(static)
-#endif
-    for (long i = 0; i < n; i++) {
+    recon::parallel_for(n, [&](long i) {
         uint8_t* p = out + i * rec;
         std::memcpy(p, xyz + i * 3, 12);
         p += 12;
@@ -34,7 +29,7 @@ long ply_pack(long n, const float* xyz, const float* nrm,
             if (bgr) { p[0] = c[2]; p[1] = c[1]; p[2] = c[0]; }
             else     { p[0] = c[0]; p[1] = c[1]; p[2] = c[2]; }
         }
-    }
+    });
     return rec;
 }
 
@@ -42,10 +37,7 @@ long ply_pack(long n, const float* xyz, const float* nrm,
 void ply_unpack(long n, const uint8_t* recs, long rec_size,
                 int has_nrm, int has_rgb, int bgr,
                 float* xyz, float* nrm, uint8_t* rgb) {
-#ifdef _OPENMP
-#pragma omp parallel for schedule(static)
-#endif
-    for (long i = 0; i < n; i++) {
+    recon::parallel_for(n, [&](long i) {
         const uint8_t* p = recs + i * rec_size;
         std::memcpy(xyz + i * 3, p, 12);
         p += 12;
@@ -54,19 +46,19 @@ void ply_unpack(long n, const uint8_t* recs, long rec_size,
             if (bgr) { rgb[i*3+0] = p[2]; rgb[i*3+1] = p[1]; rgb[i*3+2] = p[0]; }
             else     { rgb[i*3+0] = p[0]; rgb[i*3+1] = p[1]; rgb[i*3+2] = p[2]; }
         }
-    }
+    });
 }
 
 // Triangle faces -> PLY face records (u8 count + 3x i32).
 void ply_pack_faces(long n, const int32_t* faces, uint8_t* out) {
-#ifdef _OPENMP
-#pragma omp parallel for schedule(static)
-#endif
-    for (long i = 0; i < n; i++) {
+    recon::parallel_for(n, [&](long i) {
         uint8_t* p = out + i * 13;
         p[0] = 3;
         std::memcpy(p + 1, faces + i * 3, 12);
-    }
+    });
 }
+
+// Worker threads of the parallel loops (the hardware's thread count).
+int native_threads() { return recon::num_threads(); }
 
 }  // extern "C"

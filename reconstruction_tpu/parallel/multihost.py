@@ -53,8 +53,8 @@ def factor_pod(
         the largest divisor of n_devices <= the request, so uneven
         requests degrade instead of asserting;
       * frame == n_hosts keeps every frame row process-aligned (the DCN
-        axis) when hosts are homogeneous — per-host device counts on TPU
-        pods are uniform, and the multihost test asserts the alignment.
+        axis) when hosts are homogeneous (uniform per-host device
+        counts), and the multihost test asserts the alignment.
     """
     n = max(n_devices, 1)
     n_hosts = max(n // max(n_local, 1), 1)

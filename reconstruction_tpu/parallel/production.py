@@ -11,10 +11,10 @@ cloud/surface/texture stages run unchanged downstream
 (`pipeline.reconstruct.reconstruct(mesh=...)`).
 
 Design notes:
-  * Rectification + remap stay host-side per pair (cheap, and the host
-    needs the rectified uint8 images for texturing anyway); only the
-    working-resolution uint8 grids upload, sharded on the mesh's
-    `pair` axis.
+  * Rectification runs on the host per pair.  Each pair's remap runs
+    on the device that holds its shard of the mesh's `pair` axis, and
+    the sharded inputs are assembled from those per-device pieces, so
+    no device stages the other devices' pairs.
   * Pyramids, the per-level recipe, and the drift telemetry run batched
     (vmap over pairs) inside the SPMD program — zero cross-pair
     communication until cloud fusion.
@@ -40,8 +40,7 @@ from reconstruction_tpu.core.pyramid import build_pyramid, quantize_u8
 from reconstruction_tpu.core.rectify import rectify_pair
 from reconstruction_tpu.core.morphology import valid_mask
 from reconstruction_tpu.stereo.margins import Margins, find_margin
-from reconstruction_tpu.stereo.pipeline import (
-    LevelState, PairResult, match_one_level, remap_pair_views)
+from reconstruction_tpu.stereo.pipeline import PairResult, remap_pair_views
 from reconstruction_tpu.stereo.triangulate import disparity_to_cloud_np
 from reconstruction_tpu.parallel.sharded import match_level_pairs_sharded
 from reconstruction_tpu.utils.transfer import fetch_packed
@@ -66,15 +65,23 @@ def match_pairs_sharded(
     use_native = resolve_backend(cfg.cloud.backend) == "native"
 
     working = cfg.finest_size
+    pair_shard = NamedSharding(mesh, P("pair"))
+    n_lanes = n_real + n_pad
+    # {device: the pair lanes it holds} of a pair-sharded array
+    lanes_of = {d: range(n_lanes)[idx[0]] for d, idx in
+                pair_shard.addressable_devices_indices_map(
+                    (n_lanes,)).items()}
+    home = {i: d for d, lanes in lanes_of.items() for i in lanes}
     rects, imgs_d, masks_d, raw_d = [], [], [], []
     host_im, host_rm, host_er = [], [], []
-    for pin in pairs:
+    for i, pin in enumerate(pairs):
         origin_size = (pin.image0.shape[1], pin.image0.shape[0])
         rect = rectify_pair(pin.K0, pin.Rt0, pin.K1, pin.Rt1,
                             origin_size, working)
-        imgs, masks, raw_masks, h_im, h_rm, h_er = remap_pair_views(
-            cfg, pin.image0, pin.image1, pin.mask0, pin.mask1,
-            pin.K0, pin.K1, rect, working, use_native)
+        with jax.default_device(home[i]):
+            imgs, masks, raw_masks, h_im, h_rm, h_er = remap_pair_views(
+                cfg, pin.image0, pin.image1, pin.mask0, pin.mask1,
+                pin.K0, pin.K1, rect, working, use_native)
         rects.append(rect)
         imgs_d.append(imgs)
         masks_d.append(masks)
@@ -83,24 +90,27 @@ def match_pairs_sharded(
         host_rm.append(h_rm)
         host_er.append(h_er)
 
-    def stack(view_lists, k):
+    def put(view_lists, k):
+        """Pair-sharded (n_lanes, ...) array built shard by shard on the
+        shard's own device (padded lanes repeat pair 0)."""
         arrs = [vl[k] for vl in view_lists]
         arrs += [arrs[0]] * n_pad
-        return jnp.stack(arrs)
+        shards = [jnp.stack([jax.device_put(arrs[i], d) for i in lanes])
+                  for d, lanes in lanes_of.items()]
+        return jax.make_array_from_single_device_arrays(
+            (n_lanes,) + arrs[0].shape, pair_shard, shards)
 
     have_host_imgs = bool(host_im[0])
-    pair_shard = NamedSharding(mesh, P("pair"))
-    put = lambda a: jax.device_put(a, pair_shard)
-    I0 = put(stack(imgs_d, 0))
-    I1 = put(stack(imgs_d, 1))
-    M0 = put(stack(masks_d, 0))
-    M1 = put(stack(masks_d, 1))
+    I0 = put(imgs_d, 0)
+    I1 = put(imgs_d, 1)
+    M0 = put(masks_d, 0)
+    M1 = put(masks_d, 1)
     if not have_host_imgs:
         # Raw (pre-erosion) masks only feed the packed fetch on the jax
         # path; in native mode they stay host-side (remap_pair_views
         # returns None entries).
-        R0 = put(stack(raw_d, 0))
-        R1 = put(stack(raw_d, 1))
+        R0 = put(raw_d, 0)
+        R1 = put(raw_d, 1)
 
     # Batched pyramids (`ConstructPyrm`, `CStereoMatching.cpp:1040-1053`).
     L = cfg.pyramid_levels
@@ -121,10 +131,7 @@ def match_pairs_sharded(
             ws=cfg.stereo.refine_ws,
             refine_iters=cfg.refine_iterations(level),
             median_iters=cfg.stereo.median_iterations,
-            refine_impl=cfg.stereo.refine_impl,
             recenter_every=cfg.stereo.refine_recenter_every,
-            refine_cv_dtype=cfg.stereo.refine_cv_dtype,
-            refine_extract=cfg.stereo.refine_extract,
         )
         drifts.append(jnp.stack([state.refine_drift0,
                                  state.refine_drift1], axis=1))

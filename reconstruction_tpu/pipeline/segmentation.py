@@ -14,7 +14,7 @@ Replaces the MATLAB/mex preprocessing (`Demo/segmentation/CutImageDir.m`,
      |region_mean - I| < max_dif (`RegionGrowing_mex.cpp:153-266`) to
      carve away background bleed, then final morphology.
 
-TPU-native: the NCC score is the stereo box-filter NCC at shift 0; the
+Array formulation: the NCC score is the stereo box-filter NCC at shift 0; the
 flood fill is an iterative masked-dilation fixed point under
 `lax.while_loop`; connected-component selection is one labeled pass on
 host (scipy) since it runs once per frame at preprocessing time.

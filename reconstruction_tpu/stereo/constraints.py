@@ -146,8 +146,7 @@ def ordering_constraint(disp: jnp.ndarray, m: Margins,
 def _q_lookup_banded(q: jnp.ndarray, bL: jnp.ndarray, active: jnp.ndarray,
                      band: int = 64) -> Tuple[jnp.ndarray, ...]:
     """qv_k[y, x] = q[y, clip(bL + k, 0, W-1)] for k in {0, 1, 2}, computed
-    WITHOUT minor-axis gathers (TPU gathers on the lane dimension
-    serialize): rows are banded and each band sweeps only its own range of
+    WITHOUT minor-axis gathers: rows are banded and each band sweeps only its own range of
     shifts s = clip(bL+k) - x, selecting from uniformly shifted copies of
     q.  Values at ~active pixels are arbitrary (0)."""
     H, W = q.shape

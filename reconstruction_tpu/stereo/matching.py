@@ -3,7 +3,7 @@
 Replaces `LowestLevelInitialMatch` (`CStereoMatching.cpp:170-227`),
 `HighLevelInitialMatch` (`:231-308`) and `Rematch` (`:499-570`).
 
-TPU-first design: instead of the reference's per-pixel candidate scans
+Array design: instead of the reference's per-pixel candidate scans
 (pointer-chasing over window vectors), all three matchers reduce to ONE
 primitive — a sweep over uniform epipolar shifts `s` with a running
 argmax.  For each shift the zero-mean NCC of every pixel against the
@@ -16,7 +16,7 @@ target column x+s is a handful of fused element-wise ops on (H, W) maps
 
 The sweep runs as a `lax.fori_loop` whose (traced) trip count is the
 actual disparity range present in the per-pixel bounds — no gathers, no
-data-dependent shapes, pure VPU work that XLA fuses into one loop body.
+data-dependent shapes, elementwise work that XLA fuses into one loop body.
 Candidate order (ascending target column) and strict-> argmax update
 reproduce the reference's first-maximum tie-breaking
 (`CStereoMatching.cpp:213-217`).
@@ -127,14 +127,7 @@ def ncc_sweep_match(
         near-full-row search intervals (`HighLevelInitialMatch`'s
         fallthrough bounds, `CStereoMatching.cpp:259-288`).
       sblock: shifts per loop iteration (bit-identical for any K —
-        same ascending-candidate select chain).  MEASURED SLOWER than
-        depth-1 on-chip and kept at 1: the r5 A/B (chained harness,
-        tools/validate_mxu_sweep.py) read depth-1 at 7.5 ms/64 shifts
-        vs 13.6/11.3/17.9 ms at K=4/8/16 — XLA already fuses the
-        depth-1 body into one pass over the operands, and the K-wide
-        slices materialize as extra copies instead of amortizing
-        reads.  The hypothesis that the body re-read its operands
-        per shift was wrong; kept as a documented negative result.
+        same ascending-candidate select chain).  Production uses 1.
 
     Returns disparity d = t - x (reference convention) and the best score.
     A pixel matches only if some candidate scores > -1

@@ -11,7 +11,7 @@ wx = exp(-(|dE-dC| - |dW-dC|)^2), wy likewise (`:664-666`);
 d' = (d_p w_p + ws d_s)/(w_p + ws) (`:652-672`).  Jacobi double-buffered
 (`:675-679`) => a pure functional update d <- F(d).
 
-TPU-first design: the right-image 3x3 windows never change across
+Array design: the right-image 3x3 windows never change across
 iterations, so the integer-shift NCC cost c3(y, x, s) is precomputed ONCE
 as a per-row-rebased local cost volume (each row stores S_CAP shifts
 starting at its own base), built from uniform-shift sweeps — no gathers.
@@ -130,12 +130,12 @@ def _banded_cost_volume(
 def resolve_recenter(iterations: int, recenter_every: int,
                      t: int = 6) -> int:
     """Resolve the recenter_every knob: -1 (auto) = ONE mid-run window
-    re-extraction, rounded up to a multiple of ``t`` so the Pallas
-    T-segment path (ops/refine_pallas.py, default T=6) chunks
-    identically to the XLA scan path and stays bit-equal; 0 = never
-    recenter; k > 0 = every k sweeps.  One re-extraction (the gather-free binshift) costs
-    ~0.24 s at 1920x1280 — affordable once per run, while k=10 at
-    level-3 iteration counts would triple the refine stage."""
+    re-extraction, rounded up to a multiple of ``t`` (6: the alignment
+    the production outputs were validated with — changing it moves the
+    re-extraction sweep and so the refined disparities); 0 = never
+    recenter; k > 0 = every k sweeps.  Re-extracting once per run is
+    cheap, while k=10 at level-3 iteration counts would triple the
+    refine stage."""
     if recenter_every == -1:
         half = -(-max(iterations // 2, 1) // t) * t
         return half if half < iterations else 0
@@ -164,10 +164,8 @@ def disparity_refine(
 
     use_minicv=True (default) runs the cost lookups through a 32-slot
     per-pixel mini volume with branch-free selects instead of
-    per-iteration minor-axis gathers — TPU gathers on the minor dimension
-    serialize (~105 ms/sweep measured at 1920x1280 vs ~1 ms of actual
-    traffic).  Semantics verified equal (tests/test_ops_pallas.py and the
-    oracle suite run both paths).
+    per-iteration minor-axis gathers.  Semantics verified equal
+    (tests/test_stereo_stages.py and the oracle suite run both paths).
 
     Drift budget: the reference recomputes the 3x3 NCC at the CURRENT
     disparity every iteration (`CStereoMatching.cpp:624-630`), so its
@@ -263,9 +261,7 @@ def _window_slots_binshift(cv: jnp.ndarray, j0: jnp.ndarray, mini: int,
     """cvm[y, x, k] = cv[y, x, j0 + k] for k < mini, reading 0.5 wherever
     j0 + k falls outside [0, s_cap) — WITHOUT per-pixel gathers.
 
-    TPU minor-axis gathers serialize (take_along_axis of 32 slots at
-    1920x1280x128 measured ~1.8 s — it dominated the whole refine call).
-    Instead the per-pixel start offset is applied as a log2(range) chain
+    Instead of a per-pixel take_along_axis, the per-pixel start offset is applied as a log2(range) chain
     of conditional slot-axis shifts: each step selects, per pixel,
     between the volume and a statically-shifted copy, halving the
     remaining offset and narrowing the slot extent as the remaining
@@ -309,8 +305,7 @@ def _refine_minicv(
 ) -> jnp.ndarray:
     """Gather-free refinement: one 32-slot per-pixel cost window.
 
-    TPU minor-axis gathers serialize, so NO take_along_axis anywhere:
-    the per-pixel window (centered on the anchor at extraction time) is
+    No take_along_axis anywhere: the per-pixel window (centered on the anchor at extraction time) is
     built by fused conditional-shift selects over the banded volume's
     slot axis, and every iteration's three xi lookups are branch-free
     selects over the (mini, H, W) window.  Drift beyond +-(mini/2 - 4)

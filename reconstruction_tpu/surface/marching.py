@@ -105,7 +105,7 @@ def marching_tetrahedra(
     """Extract the iso-surface of a (Rx, Ry, Rz) grid.
 
     Returns (vertices (V, 3) world coords, faces (F, 3) int32), with
-    vertices deduplicated.  Uses the OpenMP C++ extractor
+    vertices deduplicated.  Uses the multi-threaded C++ extractor
     (`native/src/marching_tets.cpp`) when built; the NumPy path below is
     the behavioral reference.
     """

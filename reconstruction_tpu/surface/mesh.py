@@ -210,7 +210,7 @@ def laplacian_smooth(
     is_bnd[bnd_v] = True
 
     if cotangent:
-        # Fused native path (C++/OpenMP, native/src/cloud_stats.cpp):
+        # Fused native path (C++ threads, native/src/cloud_stats.cpp):
         # the numpy formulation allocates ~30 temporaries of 60 MB per
         # iteration at production vertex counts.
         from reconstruction_tpu import native

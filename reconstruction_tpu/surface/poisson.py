@@ -3,7 +3,7 @@
 Replaces the external `PoissonRecon.x64.exe --depth 9 --samplesPerNode 2
 --pointWeight 0 --solverDivide 9` (`Demo/mesh.bat:1`) and meshlab's global
 Poisson (octree depth 10, `Demo/meshlab/script1.mlx`).  The reference
-shells out to adaptive-octree CPU solvers; the TPU-native equivalent is a
+shells out to adaptive-octree CPU solvers; the array equivalent is a
 dense regular grid (SURVEY.md section 7 hard part (d)) where every step is
 a stencil:
 
@@ -12,8 +12,7 @@ a stencil:
   2. f = div V (central differences),
   3. a SPECTRAL solve of Delta chi = f: the periodic discrete Laplacian
      diagonalizes under the 3D FFT, so the solve is one rfftn / irfftn
-     round trip — exact, iteration-free, and XLA's FFT keeps it on the
-     MXU-adjacent fast path.  The padded domain boundary is uniformly
+     round trip — exact and iteration-free.  The padded domain boundary is uniformly
      "outside" the shape, so the periodic wrap is benign,
   4. isovalue = density-weighted mean of chi at the samples
      (Kazhdan's isosurface selection).

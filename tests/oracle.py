@@ -2,7 +2,7 @@
 
 Each function is a direct, *sequential* expression of the behavior
 documented in SURVEY.md / the stage docstrings (with `file:line` citations
-into /root/reference), used to property-test the vectorized TPU
+into the reference), used to property-test the vectorized array
 implementations.  Written for clarity, not speed: plain loops, one pixel
 at a time, mirroring the C++ control flow including in-place update order.
 

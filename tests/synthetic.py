@@ -36,21 +36,25 @@ def render_view(
     image_size: Tuple[int, int],
     extent: float = 2.0,
     steps: int = 64,
+    rows: Tuple[int, int] | None = None,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Ray-cast the height field into one view: per pixel, march the ray
     to the surface z = f(x, y) and refine the hit by bisection — exact,
-    alias-free images (no splat noise), exact masks.
+    alias-free images (no splat noise), exact masks.  ``rows`` = (r0, r1)
+    renders only that band of rows (pixels are independent).
 
     Returns (image (H, W, 3) float32 BGR, mask (H, W) float32 0/255).
     """
     w, h = image_size
+    r0, r1 = rows if rows is not None else (0, h)
     R = np.asarray(cam.R, np.float64)
     t = np.asarray(cam.t, np.float64)
     K = np.asarray(cam.K, np.float64)
     C = -R.T @ t                      # camera center (world)
 
     u, v = np.meshgrid(np.arange(w, dtype=np.float64),
-                       np.arange(h, dtype=np.float64))
+                       np.arange(r0, r1, dtype=np.float64))
+    h = r1 - r0
     rays = np.stack([(u - K[0, 2]) / K[0, 0],
                      (v - K[1, 2]) / K[1, 1],
                      np.ones_like(u)], axis=-1)      # camera coords
@@ -105,22 +109,55 @@ def ground_truth_cloud(extent: float = 2.0, grid: int = 200) -> np.ndarray:
     return np.stack([X, Y, Z], axis=-1).reshape(-1, 3)
 
 
+def _render_np(K: np.ndarray, Rt: np.ndarray, image_size: Tuple[int, int],
+               rows: Tuple[int, int]):
+    """render_view of one row band from plain host matrices (pool
+    worker entry)."""
+    from types import SimpleNamespace
+    return render_view(SimpleNamespace(K=K, R=Rt[:, :3], t=Rt[:, 3]),
+                       image_size, rows=rows)
+
+
+def _cpu_only_worker():
+    import os
+    os.environ["JAX_PLATFORMS"] = "cpu"
+
+
 def make_stereo_scene(
     image_size: Tuple[int, int] = (320, 240),
     span_deg: float = 7.0,
     num_cameras: int = 2,
     focal: float | None = None,
+    processes: int = 1,
 ) -> Tuple[List[Camera], List[np.ndarray], List[np.ndarray]]:
-    """Cameras + rendered images + masks for an inward-facing rig."""
+    """Cameras + rendered images + masks for an inward-facing rig.
+
+    processes > 1 renders row bands of the views in that many spawned
+    worker processes (same pixels; the workers never touch an
+    accelerator)."""
     focal = focal if focal is not None else image_size[0] * 1.6
     cams = synthetic_rig(num_cameras=num_cameras, radius=8.0,
                          span_deg=span_deg, focal=focal,
                          image_size=image_size)
-    imgs, masks = [], []
-    for c in cams:
-        img, mask = render_view(c, image_size)
-        imgs.append(img)
-        masks.append(mask)
+    if processes > 1:
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+        h = image_size[1]
+        bands = -(-processes // len(cams))
+        edges = [h * i // bands for i in range(bands + 1)]
+        jobs = [(np.asarray(c.K), np.asarray(c.Rt), image_size, (a, b))
+                for c in cams for a, b in zip(edges[:-1], edges[1:])]
+        with ProcessPoolExecutor(
+                max_workers=processes, initializer=_cpu_only_worker,
+                mp_context=multiprocessing.get_context("spawn")) as pool:
+            parts = list(pool.map(_render_np, *zip(*jobs)))
+        views = [tuple(np.concatenate([p[k] for p in
+                                       parts[i * bands:(i + 1) * bands]])
+                       for k in (0, 1)) for i in range(len(cams))]
+    else:
+        views = [render_view(c, image_size) for c in cams]
+    imgs = [img for img, _ in views]
+    masks = [mask for _, mask in views]
     return cams, imgs, masks
 
 

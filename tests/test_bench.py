@@ -1,31 +1,25 @@
 """Bench-harness unit tests.
 
-The r3 kernels phase originally passed absolute bounds [0, 63] for every
-pixel, silently turning the "64-shift" sweep into a 1343-shift one and
-invalidating two rounds of roofline numbers — these tests pin the
-harness semantics so that class of bug cannot recur.
+Sweep bounds are ABSOLUTE target columns: passing [0, 63] for every
+pixel would silently turn the "64-shift" sweep into a 1343-shift one —
+these tests pin the harness semantics so that class of bug cannot recur.
 """
 
 import json
-import sys
 
 import numpy as np
 import jax.numpy as jnp
-import pytest
 
-sys.path.insert(0, "/root/repo")
-import bench  # noqa: E402
+import bench
 
 
 def test_kernel_sweep_bounds_are_exactly_64_shifts():
     """The roofline workload's per-pixel bounds must span exactly the 64
     shifts the analytic cost model budgets (s in [0, 63])."""
-    H, W = 64, 128
-    nsh = 64
+    H, W, nsh = 64, 128, 64
+    k = bench.kernel_inputs(H, W, nsh)
+    lo, hi = k["lo"], k["hi"]
     xg = jnp.arange(W, dtype=jnp.int32)[None, :]
-    lo = jnp.broadcast_to(xg, (H, W))
-    hi = jnp.minimum(lo + nsh - 1, W - 1)
-    active = jnp.ones((H, W), bool)
     # the same derivation ncc_sweep_match applies
     s_lo = np.asarray(lo - xg).min()
     s_hi = np.asarray(hi - xg).max()
@@ -35,33 +29,33 @@ def test_kernel_sweep_bounds_are_exactly_64_shifts():
     span = np.asarray(hi - lo) + 1
     assert span.max() <= nsh
     assert span.min() >= 1
+    assert k["imgL"].shape == (H, W, 3) and k["disp0"].shape == (H, W)
 
 
-def test_merge_reports_full_error_when_full_phase_missing(capsys):
+DEVICE = {"platform": "gpu", "kind": "NVIDIA H100 80GB HBM3", "count": 1}
+
+
+def test_merge_falls_back_to_stereo_without_full_phase():
     results = {
         "stereo": {"matching_s": 1.0, "total_s": 1.0, "views_per_s": 2.0,
-                   "stages_s": {"stereo": 1.0}, "mesh": {},
-                   "chip": "TPU v5 lite"},
-        "kernels": {"kernels": {"refine": {"seconds": 0.05}},
-                    "chip": "TPU v5 lite"},
+                   "stages_s": {"stereo": 1.0}, "mesh": {}},
+        "kernels": {"refine": {"seconds": 0.05}},
     }
-    bench.merge_and_print(results, {"stereo": 1, "full": 2, "kernels": 1})
-    out = json.loads(capsys.readouterr().out.strip())
+    out = json.loads(json.dumps(bench.merge(results, DEVICE)))
     assert out["value"] == 2.0
-    assert "full_error" in out
+    assert "stereo_only" not in out
     assert out["kernels"]["refine"]["seconds"] == 0.05
-    assert out["chip"] == "TPU v5 lite"
+    assert out["device"] == DEVICE
 
 
-def test_merge_prefers_full_phase(capsys):
+def test_merge_prefers_full_phase():
     results = {
-        "stereo": {"matching_s": 1.0, "views_per_s": 2.0, "chip": "c"},
+        "stereo": {"matching_s": 1.0, "views_per_s": 2.0},
         "full": {"matching_s": 14.0, "total_s": 44.0, "views_per_s": 0.18,
-                 "stages_s": {}, "mesh": {"surface_rmse": 0.0076},
-                 "chip": "c"},
+                 "stages_s": {}, "mesh": {"surface_rmse": 0.0076}},
     }
-    bench.merge_and_print(results, {"stereo": 1, "full": 1})
-    out = json.loads(capsys.readouterr().out.strip())
+    out = bench.merge(results, DEVICE)
     assert out["value"] == 0.18
-    assert "full_error" not in out
+    assert out["mesh"]["surface_rmse"] == 0.0076
     assert out["stereo_only"]["views_per_s"] == 2.0
+    assert out["kernels"] == {}

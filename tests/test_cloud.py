@@ -246,8 +246,7 @@ def test_cross_view_dedup_vs_oracle(rng):
 def test_dense_grid_outlier_bbox_bounded(rng):
     """Regression: a pre-SOR stereo cloud's raw bbox is set by
     triangulation outliers; the dense grid must stay within its cell
-    budget (the unbounded version crashed the TPU worker allocating a
-    billions-of-cells table) and the filter must still kill the
+    budget (unbounded, it would allocate a billions-of-cells table) and the filter must still kill the
     outliers."""
     from reconstruction_tpu.cloud.filters import sor_filter
     from reconstruction_tpu.cloud.neighbors import host_grid_geometry

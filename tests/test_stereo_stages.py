@@ -429,3 +429,42 @@ def test_refine_auto_recenter_bounds_drift_at_level3_iters(rng):
     assert np.median(err_auto) <= np.median(err_stale) + 1e-12
     # bounded by the banded volume's fill margin
     assert np.abs(auto - disp)[valid].max() < 32 + 2
+
+
+def _refine_scene(rng, H=48, W=40):
+    imgL = rng.uniform(0, 255, (H, W, 3)).astype(np.float32)
+    imgR = rng.uniform(0, 255, (H, W, 3)).astype(np.float32)
+    disp = rng.integers(-2, 3, (H, W)).astype(np.float32)
+    valid = np.zeros((H, W), bool)
+    valid[3:-3, 3:-3] = True
+    disp[~valid] = NOMATCH
+    disp[rng.uniform(size=(H, W)) < 0.15] = NOMATCH
+    return imgL, imgR, disp, valid
+
+
+def test_refine_minicv_matches_gather_path(rng):
+    imgL, imgR, disp, valid = _refine_scene(rng)
+    m = find_margin(jnp.asarray(valid), 2)
+    a = disparity_refine(jnp.asarray(disp), jnp.asarray(imgL),
+                         jnp.asarray(imgR), m, iterations=24,
+                         s_cap=32, band=8, use_minicv=False)
+    b = disparity_refine(jnp.asarray(disp), jnp.asarray(imgL),
+                         jnp.asarray(imgR), m, iterations=24,
+                         s_cap=32, band=8, use_minicv=True)
+    an, bn = np.asarray(a), np.asarray(b)
+    close = np.isclose(an, bn, atol=1e-4)
+    assert close.mean() > 0.999, (1 - close.mean())
+    np.testing.assert_array_equal(an == NOMATCH, bn == NOMATCH)
+
+
+def test_resolve_recenter_auto():
+    from reconstruction_tpu.stereo.refine import resolve_recenter
+    # auto = one mid-run re-extraction, aligned to a multiple of t=6
+    assert resolve_recenter(120, -1) == 60
+    assert resolve_recenter(90, -1) == 48
+    assert resolve_recenter(30, -1) == 18
+    assert resolve_recenter(120, 0) == 0   # explicit off
+    assert resolve_recenter(120, 30) == 30
+    # explicit alignment override
+    assert resolve_recenter(24, -1, t=6) == 12
+    assert resolve_recenter(30, -1, t=10) == 20

@@ -3,7 +3,7 @@
 PRODUCTION sharded entry point (`reconstruct(mesh=...)`) on the 8-way
 CPU pair axis.
 
-What this demonstrates (VERDICT r4 missing #3):
+What this demonstrates:
   * memory feasibility — 16 pairs x 5-level 2K pyramids live as 2
     pairs/device-lane batches; peak RSS is recorded,
   * correctness at dome scale — the fused mesh's point-to-surface RMSE
@@ -24,12 +24,14 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import resource
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
-sys.path.insert(0, "/root/repo/tests")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "tests"))
 
 import numpy as np
 

@@ -2,7 +2,7 @@
 x (2 pairs = 4 cameras) — through `pipeline.video.reconstruct_video`
 with frame-to-frame pose estimation and LOOP CLOSURES.
 
-What this demonstrates (VERDICT r4 missing #3): the temporal driver at
+What this demonstrates: the temporal driver at
 its north-star view count with drift actually corrected — the rig
 orbits the scene with injected per-step pose noise; the pose graph with
 closures (stride 8) must land the final frame closer to ground truth
@@ -15,11 +15,13 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
-sys.path.insert(0, "/root/repo/tests")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "tests"))
 
 import numpy as np
 

@@ -1,8 +1,7 @@
-"""Per-pair Poisson fidelity vs grid resolution (VERDICT r2 item 6).
+"""Per-pair Poisson fidelity vs grid resolution.
 
-The r2 pipeline silently capped the per-pair scan-mesh grid at 192^3
-while the reference's per-pair PoissonRecon runs at depth 9 (~512^3
-effective, `Demo/mesh.bat:1`).  This measures what the cap costs on a
+The per-pair scan-mesh grid is a dense grid, while the reference's per-pair PoissonRecon runs at depth 9 (~512^3
+effective, `Demo/mesh.bat:1`).  This measures what a grid size costs on a
 pair-shaped cloud: an open height-field patch sampled like a rectified
 stereo pair (anisotropic density, noise, one-sided), meshed at several
 resolutions, scored as mesh-vertex RMSE against the analytic surface.

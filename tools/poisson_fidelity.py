@@ -1,8 +1,8 @@
-"""Poisson fidelity study: mesh RMSE vs grid resolution (VERDICT item 4).
+"""Poisson fidelity study: mesh RMSE vs grid resolution.
 
 The reference runs adaptive-octree Poisson at depth 9 per pair
 (`Demo/mesh.bat:1`, ~512^3 effective) and depth 10 globally
-(`Demo/meshlab/script1.mlx`).  The TPU-native solver is a dense grid
+(`Demo/meshlab/script1.mlx`).  The in-process solver is a dense grid
 (surface/poisson.py); this tool QUANTIFIES the resolution-bounded
 fidelity loss SURVEY.md section 7(d) accepted, on two analytic shapes:
 
@@ -110,8 +110,8 @@ def main():
     if args.cpu:
         import jax
         jax.config.update("jax_platforms", "cpu")
-    import jax
-    jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
+    from reconstruction_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     resolutions = [int(r) for r in args.res.split(",")]
 
     rng = np.random.default_rng(0)

@@ -1,9 +1,8 @@
-"""Stage-level on-chip timing of the BA Schur step (chained, dispatch-
-free): isolates per-observation Jacobians+assembly (ba_blocks), the
+"""Stage-level on-card timing of the BA Schur step: isolates per-observation Jacobians+assembly (ba_blocks), the
 dense 6Cx6C solve, and the full ba_step, at the bench shape
 (16 cams, 64k points, 8 obs/point).
 
-Usage: python tools/tpu_run.py tools/profile_ba.py
+Usage: python tools/profile_ba.py   (on a GPU machine)
 """
 
 from __future__ import annotations
@@ -25,11 +24,10 @@ def log(msg):
 
 def main():
     import jax
-    jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
     import jax.numpy as jnp
 
-    sys.path.insert(0, "/root/repo")
+    from reconstruction_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     import bench as benchmod
     from reconstruction_tpu.ba.bundle_adjust import (
         BAProblem, ba_blocks, ba_step)
@@ -50,16 +48,10 @@ def main():
     poses0 = jnp.zeros((C, 6), jnp.float32)
 
     def chain(name, body):
-        def make(n):
-            @jax.jit
-            def f():
-                def it(i, carry):
-                    return body(carry)
-                return jax.lax.fori_loop(0, n, it,
-                                         (poses0, prob.points0))[1][0, 0]
-            return f
-        t = benchmod._time_chained(make, 1, 5)
-        log(f"{name}: {t * 1e3:.1f} ms")
+        """Median ms of one jitted ``body(carry)`` call (block_until_ready
+        fenced, after a compile+warm call)."""
+        t = benchmod.time_call(jax.jit(body), (poses0, prob.points0))
+        log(f"{name}: {t * 1e3:.3f} ms")
         return t
 
     # full step

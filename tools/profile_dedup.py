@@ -1,8 +1,7 @@
-"""Dedup at bench shape (VERDICT r3 #10): cross_view_dedup on a 4-pair,
+"""Dedup at bench shape: cross_view_dedup on a 4-pair,
 ~3.3M-point fused cloud with working-resolution (1920x1280) bucket
 grids — the only default-off production path that had never run at
-bench scale.  CPU by default; pass --tpu under tools/tpu_run.py for the
-on-chip number.
+bench scale.  CPU by default; pass --gpu for the on-card number.
 
 Prints kept-point counts per rule and wall time.
 """
@@ -15,7 +14,7 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-if "--tpu" not in sys.argv:
+if "--gpu" not in sys.argv:
     import jax
     jax.config.update("jax_platforms", "cpu")
 else:

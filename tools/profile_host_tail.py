@@ -1,9 +1,8 @@
 """Profile the post-stereo host tail at bench scale (CPU).
 
-The warm end-to-end run spends ~78% of its time in
-filter/MLS/marching/cleanup on 2 host cores (VERDICT r3 weak #2); this
-tool times each stage standalone on a bench-shaped synthetic cloud so
-optimizations can be measured without a chip grant.
+This tool times each host-side stage of the post-stereo tail
+(filter/MLS/marching/cleanup) standalone on a bench-shaped synthetic
+cloud, so host optimizations can be measured without a card.
 
 Usage: python tools/profile_host_tail.py [npoints_millions]
 """

@@ -1,10 +1,10 @@
 """CPU drive of the reference-parity CLI surface (the /verify recipe).
 
-Generates a 2-camera scene in the reference's on-disk format (OpenCV
+Writes a 2-camera scene in the reference's on-disk format (OpenCV
 FileStorage YAML config + calib + PNG images/masks, `CManageData.cpp:
 26-66`), runs `python -m reconstruction_tpu config.yml` in-process on
-the CPU backend, and checks the output PLY against the analytic
-surface.
+the CPU backend, and checks the output PLY against the analytic surface
+(chip_smoke.cli_check, the same check chip_smoke.py runs on the card).
 
 Usage:  python tools/verify_cli.py [workdir]
 Exit 0 = pipeline ran and interior RMSE < 0.25.
@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import os
 import sys
+import tempfile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -21,63 +22,16 @@ import jax
 
 jax.config.update("jax_platforms", "cpu")
 
-import numpy as np
 
-
-def main(workdir: str, sharded: bool = False) -> int:
-    sys.path.insert(0, os.path.join(os.path.dirname(workdir) or ".",))
-    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    sys.path.insert(0, os.path.join(repo, "tests"))
-    from synthetic import make_stereo_scene, point_to_surface_rmse
-    from reconstruction_tpu.io.images import imwrite
-    from reconstruction_tpu.io.opencv_yaml import save_opencv_yaml
-    from reconstruction_tpu.io.ply import read_ply
-
+def main(workdir: str) -> int:
+    import chip_smoke
     os.makedirs(workdir, exist_ok=True)
-    cams, imgs, masks = make_stereo_scene(image_size=(320, 240),
-                                          num_cameras=2)
-    calib = {}
-    imagelist, masklist = [], []
-    for i, (c, img, msk) in enumerate(zip(cams, imgs, masks)):
-        calib[f"intrinsic-{i}"] = np.asarray(c.K, np.float64)
-        calib[f"extrinsic-{i}"] = np.hstack([
-            np.asarray(c.R, np.float64),
-            np.asarray(c.t, np.float64).reshape(3, 1)])
-        imwrite(os.path.join(workdir, f"img{i}.png"), img)
-        imwrite(os.path.join(workdir, f"mask{i}.png"), msk)
-        imagelist.append(f"img{i}.png")
-        masklist.append(f"mask{i}.png")
-    save_opencv_yaml(os.path.join(workdir, "calib_camera.yml"), calib)
-    out_ply = os.path.join(workdir, "out.ply")
-    save_opencv_yaml(os.path.join(workdir, "config.yml"), {
-        "filepath": workdir,
-        "outfilename": out_ply,
-        "isoutput": 0,
-        "camera_calib_name": "calib_camera.yml",
-        "PyrmNum": 3,
-        "LowestLevelWidth": 80,
-        "LowestLevelHeight": 60,
-        "imagelist": imagelist,
-        "masklist": masklist,
-        "camID": np.array([[0, 1]], np.int32),
-    })
-
-    from reconstruction_tpu.__main__ import main as cli_main
-    args = ["prog", os.path.join(workdir, "config.yml")]
-    if sharded:
-        args.append("--sharded")
-    rc = cli_main(args)
-    if rc not in (0, None):
-        print(f"[verify_cli] CLI returned {rc}")
-        return 1
-    xyz = read_ply(out_ply).xyz
-    rmse = point_to_surface_rmse(xyz)
-    ok = np.isfinite(rmse) and rmse < 0.25 and len(xyz) > 1000
-    print(f"[verify_cli] verts={len(xyz)} interior_rmse={rmse:.4f} "
-          f"-> {'OK' if ok else 'FAIL'}")
-    return 0 if ok else 1
+    print(f"[verify_cli] {chip_smoke.cli_check(workdir)} -> OK")
+    return 0
 
 
 if __name__ == "__main__":
-    wd = sys.argv[1] if len(sys.argv) > 1 else "/tmp/verify_cli_scene"
-    sys.exit(main(wd, sharded="--sharded" in sys.argv))
+    if len(sys.argv) > 1:
+        sys.exit(main(sys.argv[1]))
+    with tempfile.TemporaryDirectory() as wd:
+        sys.exit(main(wd))
